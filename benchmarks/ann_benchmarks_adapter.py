@@ -1,4 +1,4 @@
-"""ann-benchmarks adapter — plugs hnsw_tpu into the standard ANN evaluation
+"""ann-benchmarks adapter — plugs hnsw_jax into the standard ANN evaluation
 harness (the protocol BASELINE.json:9 names for the GloVe config; upstream
 https://github.com/erikbern/ann-benchmarks, ``ann_benchmarks.algorithms.
 base.module.BaseANN`` interface).
@@ -13,7 +13,7 @@ adapter targets its *interface contract* rather than importing it:
   * ``get_memory_usage()``              kB, for the memory column
   * ``done()``
 
-Drop this file into ``ann_benchmarks/algorithms/hnsw_tpu/module.py`` of an
+Drop this file into ``ann_benchmarks/algorithms/hnsw_jax/module.py`` of an
 ann-benchmarks checkout (plus a config.yml declaring the module) to run the
 standard recall/QPS plots against faiss/hnswlib on the same machine.
 
@@ -31,7 +31,7 @@ import numpy as np
 
 
 class HnswTpu:
-    """BaseANN-contract adapter over hnsw_tpu.HnswIndex.
+    """BaseANN-contract adapter over hnsw_jax.HnswIndex.
 
     ``method_param``: {"M": 32, "efConstruction": 200, optional
     "packed_bits": 0|4|8, "dtype": "float32"|"sq8", "batch": 8192}.
@@ -49,24 +49,24 @@ class HnswTpu:
         self.ef_search = 64
         self.index = None
         self.res = None
-        self.name = (f"hnsw_tpu(M={self.m}, efC={self.ef_construction}"
+        self.name = (f"hnsw_jax(M={self.m}, efC={self.ef_construction}"
                      + (f", packed{self.packed_bits}" if self.packed_bits
                         else "") + ")")
 
     # -- build ---------------------------------------------------------------
     def fit(self, X: np.ndarray) -> None:
-        import hnsw_tpu
+        import hnsw_jax
 
         X = np.ascontiguousarray(np.asarray(X, np.float32))
         n, d = X.shape
         inner_metric = "l2" if self.metric == "euclidean" else "ip"
         cap = 1 << max(int(n - 1).bit_length(), 10)
-        idx = hnsw_tpu.HnswIndex(d, self.m, inner_metric, capacity=cap,
+        idx = hnsw_jax.HnswIndex(d, self.m, inner_metric, capacity=cap,
                                  ef_construction=self.ef_construction,
                                  dtype=self.dtype)
         if self.metric == "angular":
-            idx = hnsw_tpu.PreTransformIndex(
-                hnsw_tpu.NormalizationTransform(d), idx)
+            idx = hnsw_jax.PreTransformIndex(
+                hnsw_jax.NormalizationTransform(d), idx)
         if not idx.is_trained:
             idx.train(X)
         idx.add(X)

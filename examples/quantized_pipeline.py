@@ -7,7 +7,7 @@ same index_factory grammar.
 
 import numpy as np
 
-from hnsw_tpu import FlatIndex, index_factory
+from hnsw_jax import FlatIndex, index_factory
 
 
 def main():

@@ -1,14 +1,14 @@
 """Quickstart: build, search, persist — the faiss IndexHNSWFlat flow.
 
-Runs on whatever JAX device is attached — seconds on a TPU chip; the
-1-core CPU backend takes a few minutes (it exists for CI, not serving).
+Runs on whatever JAX device is attached; the CPU backend is much slower
+than a GPU (it exists for CI, not serving).
 
     python examples/quickstart.py
 """
 
 import numpy as np
 
-import hnsw_tpu
+import hnsw_jax
 
 
 def main():
@@ -17,7 +17,7 @@ def main():
     xq = rng.random((1_000, 128), np.float32)    # queries
 
     # faiss: index = faiss.IndexHNSWFlat(128, 32)
-    index = hnsw_tpu.HnswIndex(128, 32, "l2", capacity=1 << 15,
+    index = hnsw_jax.HnswIndex(128, 32, "l2", capacity=1 << 15,
                                ef_construction=100)
     index.add(xb)                                # batched on-device build
     index.ef_search = 64                         # faiss: hnsw.efSearch
@@ -26,7 +26,7 @@ def main():
           f"dist={D[0, 0]:.4f}")
 
     # exact ground truth (faiss IndexFlat) -> recall
-    flat = hnsw_tpu.FlatIndex(128)
+    flat = hnsw_jax.FlatIndex(128)
     flat.add(xb)
     _, gt = flat.search(xq, 10)
     recall = (np.asarray(I)[:, :, None] == np.asarray(gt)[:, None, :]) \
@@ -35,7 +35,7 @@ def main():
 
     # persist + reload: results are bit-identical
     index.save("/tmp/quickstart.npz")
-    index2 = hnsw_tpu.HnswIndex.load("/tmp/quickstart.npz")
+    index2 = hnsw_jax.HnswIndex.load("/tmp/quickstart.npz")
     D2, I2 = index2.search(xq, k=10)
     assert (np.asarray(I) == np.asarray(I2)).all()
     print("save/load roundtrip: identical results")

@@ -1,12 +1,12 @@
 """Serving pattern: micro-batching many small requests into device-shaped
-launches with hnsw_tpu.Searcher.
+launches with hnsw_jax.Searcher.
 
     python examples/serving_loop.py
 """
 
 import numpy as np
 
-from hnsw_tpu import HnswIndex, Searcher
+from hnsw_jax import HnswIndex, Searcher
 
 
 def main():

@@ -1,19 +1,20 @@
 """Sharded index over a device mesh: per-shard build, fan-out search,
 packed serving, elastic degradation.
 
-On a multi-chip host this uses the real mesh; anywhere else, fake one:
+On a host with four GPUs this uses the real cards; anywhere else, fake
+four devices on the CPU:
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    JAX_PLATFORM_NAME=cpu python examples/sharded_mesh.py
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+    JAX_PLATFORMS=cpu python examples/sharded_mesh.py
 """
 
 import numpy as np
 
-from hnsw_tpu import ShardedHnswIndex, make_mesh
+from hnsw_jax import ShardedHnswIndex, make_mesh
 
 
 def main():
-    mesh = make_mesh(n_shards=4, q_parallel=2)   # 8 devices
+    mesh = make_mesh(n_shards=4, q_parallel=1)   # 4 devices
     print("mesh:", dict(mesh.shape))
 
     rng = np.random.default_rng(0)

@@ -2,23 +2,22 @@
 """One-command faiss IndexHNSWFlat parity run (BASELINE.json:8; SURVEY.md §4
 item 3, §6).
 
-The TPU build environment has zero network egress, so faiss-cpu cannot be
-installed there; run THIS script on any machine with connectivity:
+faiss-cpu is not a dependency of this repository; run THIS script on any
+machine where it can be installed:
 
     pip install "faiss-cpu==1.8.0" numpy && python scripts/faiss_parity.py
 
-It reproduces the exact seeded synthetic workload the TPU bench uses
-(hnsw_tpu.utils.datasets.synthetic_workload with the same seed/shape — or
-real SIFT1M if the TEXMEX files are under $HNSW_TPU_DATA, see
+It reproduces the exact seeded synthetic workload the GPU bench uses
+(hnsw_jax.utils.datasets.synthetic_workload with the same seed/shape — or
+real SIFT1M if the TEXMEX files are under $HNSW_DATA, see
 scripts/fetch_datasets.sh), builds faiss IndexHNSWFlat single-threaded at
 the same hyperparameters, sweeps efSearch, and prints the recall@10 / QPS
-frontier as JSON lines directly comparable to BASELINE.md's TPU rows and to
-the bundled C++ engine rows (bench.py's denominator).
+frontier as JSON lines comparable to bench.py's output and to the bundled
+C++ engine rows (bench.py's denominator).
 
-Parity claim this validates: the recall-vs-ef frontier of the TPU engine
-matches faiss IndexHNSWFlat within tolerance at equal (M, efConstruction)
-memory budget, and the TPU QPS/chip at recall>=0.95 exceeds 10x faiss
-single-core QPS (the BASELINE.json:5 north star).
+Parity claim this validates: the recall-vs-ef frontier of the device
+engine matches faiss IndexHNSWFlat within tolerance at equal (M,
+efConstruction) memory budget.
 
 Env knobs: PARITY_N (default 1_000_000), PARITY_D (128), PARITY_M (32),
 PARITY_EFC (100), PARITY_Q (8192), PARITY_THREADS (1),
@@ -47,8 +46,8 @@ def main():
               file=sys.stderr)
         return 2
 
-    from hnsw_tpu.utils.datasets import load_eval_workload, synthetic_workload
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.datasets import load_eval_workload, synthetic_workload
+    from hnsw_jax.utils.recall import recall_at_k
 
     n = int(os.environ.get("PARITY_N", 1_000_000))
     d = int(os.environ.get("PARITY_D", 128))
@@ -61,7 +60,7 @@ def main():
     if dataset:
         wl = load_eval_workload(dataset, n_queries=nq)
     else:
-        # EXACT same seeded workload as `python bench.py` on the TPU side
+        # EXACT same seeded workload as `python bench.py` on the GPU side
         wl = synthetic_workload(n, d, n_queries=nq, metric="l2", seed=1234,
                                 name=f"sift-shaped-{n}x{d}")
     base = np.ascontiguousarray(wl.base, np.float32)
@@ -113,7 +112,7 @@ def main():
         best = max(at_target, key=lambda x: x["qps"])
         print(f"# faiss operating point: {best['qps']} qps @ "
               f"recall {best['recall@10']} (ef={best['ef']}) — compare "
-              f"BASELINE.md's TPU row at the same workload", file=sys.stderr)
+              f"bench.py's output at the same workload", file=sys.stderr)
     return 0
 
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env bash
-# Fetch the real eval datasets (BASELINE.json:7-11) into $HNSW_TPU_DATA
+# Fetch the real eval datasets (BASELINE.json:7-11) into $HNSW_DATA
 # (default ./data) and verify exact file sizes (see data/README.md — sizes
 # are fully determined by the file formats, so a size match is a complete
 # truncation check; cross-check md5 against the publishers' lists).
 #
-# Requires network egress — the TPU build environment this repo was
-# developed in has none, which is why BASELINE.md results are on
-# shape-matched synthetics. Run this wherever you have connectivity.
+# Requires network egress; the benchmarks fall back to shape-matched
+# synthetic workloads without these files. Run this wherever you have
+# connectivity.
 set -euo pipefail
 
-ROOT="${HNSW_TPU_DATA:-data}"
+ROOT="${HNSW_DATA:-data}"
 mkdir -p "$ROOT"
 cd "$ROOT"
 

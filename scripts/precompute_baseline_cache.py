@@ -1,8 +1,8 @@
-"""Precompute + commit the CPU-baseline cache entry for a bench config
-(VERDICT.md r3 item 1a): the single-core C++ baseline build at 1M costs
-~16 min, which is exactly what blew the round-3 driver budget. Run this
-once per eval config on a quiet machine; bench.py then reads the committed
-cache and prints its parsed summary with a real vs_baseline immediately.
+"""Precompute + commit the CPU-baseline cache entry for a bench config:
+the single-core C++ baseline build at 1M takes many minutes, too long to
+repeat in every bench run. Run this once per eval config on a quiet
+machine; bench.py then reads the committed cache and prints its parsed
+summary with a real vs_baseline immediately.
 
 Usage mirrors bench.py's env knobs: BENCH_N/D/Q/M/EFC/BENCH_DATASET/
 BENCH_CPU_N/BENCH_TARGET_RECALL.
@@ -16,7 +16,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
-from hnsw_tpu.utils.datasets import (load_eval_workload,  # noqa: E402
+from hnsw_jax.utils.datasets import (load_eval_workload,  # noqa: E402
                                      synthetic_workload)
 
 
@@ -61,8 +61,8 @@ def main():
         t0 = time.time()
         try:
             import jax.numpy as jnp
-            import hnsw_tpu
-            flat = hnsw_tpu.FlatIndex(d, wl.metric)
+            import hnsw_jax
+            flat = hnsw_jax.FlatIndex(d, wl.metric)
             flat.add(base)
             _, gt = flat.search(queries[:nq_cap], 10)
             gt = np.asarray(gt)

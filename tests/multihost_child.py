@@ -22,9 +22,9 @@ jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-from hnsw_tpu.parallel.sharded import ShardedHnswIndex, make_mesh
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.parallel.sharded import ShardedHnswIndex, make_mesh
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 assert jax.device_count() == 4 * nproc, jax.device_count()
 assert jax.local_device_count() == 4

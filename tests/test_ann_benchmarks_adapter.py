@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
 from ann_benchmarks_adapter import HnswTpu  # noqa: E402
 
 from conftest import exact_knn  # noqa: E402
-from hnsw_tpu.utils.recall import recall_at_k  # noqa: E402
+from hnsw_jax.utils.recall import recall_at_k  # noqa: E402
 
 
 def test_euclidean_protocol():
@@ -33,7 +33,7 @@ def test_euclidean_protocol():
     one = algo.query(Q[0], 10)
     assert set(one) == set(ids[0][ids[0] >= 0])
     assert algo.get_memory_usage() > 0
-    assert "hnsw_tpu" in str(algo)
+    assert "hnsw_jax" in str(algo)
     algo.done()
     assert algo.index is None
 

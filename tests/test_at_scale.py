@@ -1,5 +1,5 @@
-"""At-scale regression tier (VERDICT.md r2 item 4): the round-2 packed-table
-corruption was invisible to CI because nothing exercised bench-scale node
+"""At-scale regression tier: a packed-table int32 offset
+corruption was once invisible to CI because nothing exercised bench-scale node
 counts. This tier builds a >=256k-node graph on the CPU backend and checks
 the properties that only break at scale: id arithmetic in the packed
 serving tables, structural invariants over a large graph, and recall of
@@ -9,9 +9,9 @@ both serving paths. Run with `pytest tests/ -m slow`.
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+import hnsw_jax
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 pytestmark = pytest.mark.slow
 
@@ -23,7 +23,7 @@ M = 8
 @pytest.fixture(scope="module")
 def big_index():
     wl = synthetic_workload(N, D, n_queries=512, metric="l2", seed=41)
-    idx = hnsw_tpu.HnswIndex(D, M, "l2", capacity=N + 8192,
+    idx = hnsw_jax.HnswIndex(D, M, "l2", capacity=N + 8192,
                              ef_construction=48)
     idx.add(wl.base)
     return idx, wl
@@ -43,7 +43,7 @@ def test_recall_and_packed_agreement_at_scale(big_index):
     canary that would have caught the round-2 overflow class (works at toy
     scale, corrupts at bench scale) had it existed."""
     idx, wl = big_index
-    flat = hnsw_tpu.FlatIndex(D, "l2")
+    flat = hnsw_jax.FlatIndex(D, "l2")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
     gt = np.asarray(gt)

@@ -13,9 +13,9 @@ as faiss where insert order changes the graph but not its quality.)
 
 import numpy as np
 
-from hnsw_tpu import HnswIndex
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswIndex
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 

@@ -2,7 +2,7 @@ import math
 
 import pytest
 
-from hnsw_tpu import HnswConfig
+from hnsw_jax import HnswConfig
 
 
 def test_defaults_match_faiss_semantics():

@@ -2,7 +2,7 @@ import struct
 
 import numpy as np
 
-from hnsw_tpu.utils.datasets import (Workload, load_eval_workload, read_fbin,
+from hnsw_jax.utils.datasets import (Workload, load_eval_workload, read_fbin,
                                      read_fvecs, read_ivecs,
                                      synthetic_workload)
 
@@ -48,7 +48,7 @@ def test_fbin_roundtrip(tmp_path):
 
 
 def test_eval_config_loads_real_files_when_present(tmp_path, monkeypatch):
-    from hnsw_tpu.utils import datasets as ds
+    from hnsw_jax.utils import datasets as ds
     base = np.random.default_rng(3).normal(size=(50, 128)).astype(np.float32)
     q = np.random.default_rng(4).normal(size=(5, 128)).astype(np.float32)
     gt = np.tile(np.arange(10, dtype=np.int32), (5, 1))

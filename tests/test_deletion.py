@@ -4,9 +4,9 @@ remove; we tombstone without breaking the graph)."""
 import numpy as np
 import pytest
 
-from hnsw_tpu import HnswIndex
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswIndex
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 

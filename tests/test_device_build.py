@@ -4,9 +4,9 @@ incrementality (SURVEY.md §4 items 1/2/6)."""
 import numpy as np
 import pytest
 
-from hnsw_tpu import HnswIndex, check_invariants
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswIndex, check_invariants
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 

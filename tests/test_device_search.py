@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hnsw_tpu.search import compute_sqnorms, hnsw_search
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.search import compute_sqnorms, hnsw_search
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
@@ -94,7 +94,7 @@ def test_ef_bucket_width_independence(host_index, small_workload):
     """efSearch is a runtime scalar: the same ef must give identical results
     regardless of which (larger) compiled bucket width runs it."""
     import jax.numpy as jnp
-    from hnsw_tpu.search import _hnsw_search, compute_sqnorms
+    from hnsw_jax.search import _hnsw_search, compute_sqnorms
 
     g = host_index.to_graph_arrays()
     v = jnp.asarray(host_index.vectors)

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hnsw_tpu.ops.distances import brute_force_topk, pairwise_distances, true_l2
+from hnsw_jax.ops.distances import brute_force_topk, pairwise_distances, true_l2
 
 from conftest import exact_knn
 
@@ -16,7 +16,7 @@ def test_brute_force_matches_numpy(metric):
                             metric=metric)
     td, ti = exact_knn(base, q, 10, metric)
     # float32 near-ties may permute ids; compare as sets + by distance value
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
     assert recall_at_k(np.asarray(i), ti, 10) >= 0.98
     # ||x||^2 - 2 q·x in f32 carries ~1e-3 relative cancellation error
     np.testing.assert_allclose(np.asarray(d), td, rtol=5e-3, atol=5e-3)
@@ -65,7 +65,7 @@ def test_k_larger_than_n_pads():
 
 def test_brute_force_n_valid_masks_tail():
     import jax.numpy as jnp
-    from hnsw_tpu.ops.distances import brute_force_topk
+    from hnsw_jax.ops.distances import brute_force_topk
     rng = np.random.default_rng(5)
     base = rng.normal(size=(500, 16)).astype(np.float32)
     cap = np.zeros((800, 16), np.float32)

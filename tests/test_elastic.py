@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hnsw_tpu.parallel.sharded import ShardedHnswIndex, make_mesh
-from hnsw_tpu.utils.datasets import synthetic_workload
+from hnsw_jax.parallel.sharded import ShardedHnswIndex, make_mesh
+from hnsw_jax.utils.datasets import synthetic_workload
 
 from conftest import exact_knn
 
@@ -49,7 +49,7 @@ def test_mark_failed_degrades_then_recovers():
     # (original ids remapped into the alive-only id space)
     alive_ids = np.flatnonzero(np.arange(idx.ntotal) % 4 != 1)
     _, gt_alive = exact_knn(np.asarray(wl.base)[alive_ids], q, 10, "l2")
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
     remap = -np.ones(idx.ntotal, np.int64)
     remap[alive_ids] = np.arange(len(alive_ids))
     i_deg_r = np.where(i_deg >= 0, remap[np.maximum(i_deg, 0)], -1)

@@ -1,19 +1,18 @@
-"""Entry selection: sampled dense-MXU entry vs greedy descent.
+"""Entry selection: sampled dense entry scan vs greedy descent.
 
-``entry_mode="sample"`` (hnsw_tpu.search._sample_entry) replaces the faiss
+``entry_mode="sample"`` (hnsw_jax.search._sample_seeds) replaces the faiss
 greedy upper-level walk (SURVEY.md §3.1 hot loop #1) with dense matmul
-scoring of a strided sample of the live prefix — measured ~170 ms faster
-per 8k-query batch at 1M. These tests pin the semantics that make it a
+scoring of a strided sample of the live prefix. These tests pin the semantics that make it a
 drop-in: recall parity with the descent, correct masking of tombstoned /
 vacuum-isolated nodes, and composition with every storage/serving mode.
 """
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.search import entry_sample_size
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+import hnsw_jax
+from hnsw_jax.search import entry_sample_size
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 
 @pytest.fixture(scope="module")
@@ -23,9 +22,9 @@ def wl():
 
 @pytest.fixture(scope="module")
 def built(wl):
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
     idx.add(wl.base)
-    flat = hnsw_tpu.FlatIndex(32, "l2")
+    flat = hnsw_jax.FlatIndex(32, "l2")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
     return idx, gt
@@ -62,9 +61,9 @@ def test_sample_deterministic(built, wl):
 
 def test_ip_metric_sample():
     wl = synthetic_workload(4000, 32, n_queries=128, metric="ip", seed=8)
-    idx = hnsw_tpu.HnswIndex(32, 16, "ip", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(32, 16, "ip", capacity=4096, ef_construction=60)
     idx.add(wl.base)
-    flat = hnsw_tpu.FlatIndex(32, "ip")
+    flat = hnsw_jax.FlatIndex(32, "ip")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
     _, i = idx.search(wl.queries, 10, ef_search=64, entry_mode="sample")
@@ -73,7 +72,7 @@ def test_ip_metric_sample():
 
 def test_sample_with_packed(built, wl):
     idx, gt = built
-    idx2 = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096,
+    idx2 = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096,
                               ef_construction=60)
     idx2.add(wl.base)
     idx2.enable_packed(bits=8)
@@ -83,11 +82,11 @@ def test_sample_with_packed(built, wl):
 
 @pytest.mark.slow  # compile-heavy standalone build; path covered by the fast representatives + dryrun
 def test_sample_with_sq8(wl):
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096,
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096,
                              ef_construction=60, dtype="sq8")
     idx.train(wl.base)
     idx.add(wl.base)
-    flat = hnsw_tpu.FlatIndex(32, "l2")
+    flat = hnsw_jax.FlatIndex(32, "l2")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
     _, i = idx.search(wl.queries, 10, ef_search=64, entry_mode="sample")
@@ -95,7 +94,7 @@ def test_sample_with_sq8(wl):
 
 
 def test_tombstones_pre_vacuum(wl):
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
     idx.add(wl.base)
     dead = np.arange(0, 4000, 3)
     idx.remove_ids(dead)
@@ -109,7 +108,7 @@ def test_vacuum_isolated_nodes_never_entry(wl):
     rows; a sampled entry landing there would strand the query with a
     one-id result. The non-isolated mask (neighbors0[:, 0] >= 0) must
     exclude them."""
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
     idx.add(wl.base)
     dead = np.arange(0, 4000, 3)
     idx.remove_ids(dead)
@@ -119,7 +118,7 @@ def test_vacuum_isolated_nodes_never_entry(wl):
     # every query keeps a full result set (nobody stranded on an island)
     assert (i >= 0).all()
     keep = np.setdiff1d(np.arange(4000), dead)
-    flat = hnsw_tpu.FlatIndex(32, "l2")
+    flat = hnsw_jax.FlatIndex(32, "l2")
     flat.add(wl.base[keep])
     _, g2 = flat.search(wl.queries, 10)
     assert recall_at_k(i, keep[g2], 10) >= 0.95
@@ -135,7 +134,7 @@ def test_filtered_search_sample(built, wl):
 
 
 def test_tiny_index_sample():
-    idx = hnsw_tpu.HnswIndex(8, 4, "l2", capacity=1024)
+    idx = hnsw_jax.HnswIndex(8, 4, "l2", capacity=1024)
     x = np.eye(8, dtype=np.float32)[:3]
     idx.add(x)
     d, i = idx.search(x, 1, ef_search=16, entry_mode="sample")
@@ -144,9 +143,9 @@ def test_tiny_index_sample():
 
 
 def test_seed_mode_recall_and_determinism(built, wl):
-    """entry_mode='seed' pre-fills the fused beam with stratified seeds
-    (ops/beam.py beam_search_fused multi-entry init); recall must match
-    sample-mode and runs must be deterministic."""
+    """entry_mode='seed' re-scores stratified seeds and starts the beam
+    from the best; recall must match sample-mode and runs must be
+    deterministic."""
     idx, gt = built
     d1, i1 = idx.search(wl.queries, 10, ef_search=64, entry_mode="seed")
     d2, i2 = idx.search(wl.queries, 10, ef_search=64, entry_mode="seed")
@@ -156,8 +155,7 @@ def test_seed_mode_recall_and_determinism(built, wl):
 
 
 def test_seed_mode_fewer_hops_same_recall(built, wl):
-    """The point of seeding: at a tight hop cap, the pre-filled buffer
-    reaches at least sample-mode recall (usually more)."""
+    """At a tight hop cap, seeding reaches at least sample-mode recall."""
     idx, gt = built
     _, i_seed = idx.search(wl.queries, 10, ef_search=64, max_hops=12,
                            entry_mode="seed")
@@ -169,11 +167,11 @@ def test_seed_mode_fewer_hops_same_recall(built, wl):
 
 
 def test_seed_mode_packed(wl):
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096,
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096,
                              ef_construction=60)
     idx.add(wl.base)
     idx.enable_packed(bits=8)
-    flat = hnsw_tpu.FlatIndex(32, "l2")
+    flat = hnsw_jax.FlatIndex(32, "l2")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
     _, i = idx.search(wl.queries, 10, ef_search=64, entry_mode="seed")
@@ -181,8 +179,8 @@ def test_seed_mode_packed(wl):
 
 
 def test_seed_mode_legacy_fallback(built, wl):
-    """Filtered search runs the legacy beam: entry_mode='seed' must degrade
-    gracefully to single-entry init and honor the filter."""
+    """Filtered search with entry_mode='seed' starts from a single entry
+    and honors the filter."""
     idx, _ = built
     allow = np.zeros(4096, bool)
     allow[np.arange(0, 4000, 2)] = True
@@ -194,7 +192,7 @@ def test_seed_mode_legacy_fallback(built, wl):
 @pytest.mark.slow  # compile-heavy standalone build; path covered by the fast representatives + dryrun
 def test_seed_mode_vacuum(wl):
     """Seeds must never be vacuum-isolated nodes (cleared adjacency)."""
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096, ef_construction=60)
     idx.add(wl.base)
     dead = np.arange(0, 4000, 3)
     idx.remove_ids(dead)
@@ -209,7 +207,7 @@ def test_pq_auto_keeps_descend(wl):
     """entry_mode='auto' on PQ storage resolves to the descent (dense ADC
     over the sample would cost more than it saves); explicit 'sample' on
     pq storage is also legal and falls back to descend inside the impl."""
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096,
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096,
                              ef_construction=60, dtype="pq", pq_m=8)
     idx.train(wl.base[:2000])
     idx.add(wl.base)
@@ -221,10 +219,8 @@ def test_pq_auto_keeps_descend(wl):
 
 def test_seed_mode_small_ef(built, wl):
     """ef_search below the seed count (ef=10 in the 32-wide bucket used to
-    place 17 seed rows): tail seeds must be masked at init by the runtime
-    ef — not wiped by the first beam_update while silently dropping the
-    first hop's candidates that deduped against them (ADVICE r3). Recall
-    must track sample mode at the same small ef."""
+    place 17 seed rows): recall must track sample mode at the same small
+    ef."""
     idx, gt = built
     d_s, i_s = idx.search(wl.queries, 10, ef_search=10, entry_mode="seed")
     _, i_p = idx.search(wl.queries, 10, ef_search=10, entry_mode="sample")
@@ -239,9 +235,9 @@ def test_seed_mode_small_ef(built, wl):
 def test_seed_dedup_sparse_index(wl):
     """ntotal < entry sample size: strided sampling repeats ids, so
     adjacent strata can emit the SAME seed — duplicates must be masked
-    before the buffer init (search.py adjacent-dup mask, ADVICE r3).
+    before the buffer init (search.py adjacent-dup mask).
     Functional check: tiny index, seed mode returns valid deduped ids."""
-    idx = hnsw_tpu.HnswIndex(32, 16, "l2", capacity=4096,
+    idx = hnsw_jax.HnswIndex(32, 16, "l2", capacity=4096,
                              ef_construction=60)
     idx.add(wl.base[:50])   # far fewer than the 128-min sample
     d, i = idx.search(wl.base[:8], 10, ef_search=32, entry_mode="seed")

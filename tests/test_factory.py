@@ -1,7 +1,7 @@
 import pytest
 
-from hnsw_tpu import FlatIndex, HnswIndex
-from hnsw_tpu.factory import index_factory
+from hnsw_jax import FlatIndex, HnswIndex
+from hnsw_jax.factory import index_factory
 
 
 def test_hnsw_specs():

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from hnsw_tpu import HnswIndex
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswIndex
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
@@ -74,7 +74,7 @@ def test_unfiltered_unchanged(fidx):
 
 def test_device_array_filters(fidx):
     """Device-resident filters must behave identically to host ones
-    (ADVICE r1: a device int whitelist used to be misread as a bool mask)."""
+    (a device int whitelist used to be misread as a bool mask)."""
     import jax.numpy as jnp
     idx, wl = fidx
     ids = np.arange(0, 2000, 3)

@@ -4,15 +4,15 @@ over any wrapped index; upstream faiss/IndexIDMap.h, not in snapshot)."""
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu import IdMapIndex, index_factory
-from hnsw_tpu.utils.datasets import synthetic_workload
+import hnsw_jax
+from hnsw_jax import IdMapIndex, index_factory
+from hnsw_jax.utils.datasets import synthetic_workload
 
 
 @pytest.fixture(scope="module")
 def built():
     wl = synthetic_workload(1500, 16, n_queries=32, metric="l2", seed=87)
-    inner = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048,
+    inner = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048,
                                ef_construction=60)
     idx = IdMapIndex(inner)
     ids = 10_000_000_000 + np.arange(1500, dtype=np.int64) * 7

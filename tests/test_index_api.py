@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from hnsw_tpu import FlatIndex, HnswIndex
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import FlatIndex, HnswIndex
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
@@ -73,18 +73,18 @@ def test_bf16_storage(small_workload):
 def test_tune_ef_search():
     """faiss AutoTune analogue: the smallest grid ef reaching the target
     recall on a held-out query set, installed as the default."""
-    import hnsw_tpu
-    from hnsw_tpu.utils.datasets import synthetic_workload
+    import hnsw_jax
+    from hnsw_jax.utils.datasets import synthetic_workload
 
     wl = synthetic_workload(2000, 16, n_queries=64, metric="l2", seed=95)
-    idx = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
+    idx = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
     idx.add(wl.base)
     ef = idx.tune_ef_search(wl.queries, target_recall=0.95, k=10)
     assert ef in (16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
     assert idx.ef_search == ef
     # the chosen ef genuinely reaches the target vs the exact oracle
     from conftest import exact_knn
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
     _, gt = exact_knn(wl.base, wl.queries, 10, "l2")
     _, i = idx.search(wl.queries, 10)
     assert recall_at_k(i, gt, 10) >= 0.95
@@ -98,13 +98,13 @@ def test_beam_keys_knob():
     """beam_keys='bf16' forces the cheap merge keys on exact storage:
     recall stays high (near-tie retention only) and returned distances are
     still exact (the extraction rerank)."""
-    import hnsw_tpu
-    from hnsw_tpu.utils.datasets import synthetic_workload
+    import hnsw_jax
+    from hnsw_jax.utils.datasets import synthetic_workload
     from conftest import exact_knn
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
 
     wl = synthetic_workload(2000, 16, n_queries=64, metric="l2", seed=21)
-    idx = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
+    idx = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
     idx.add(wl.base)
     gtd, gt = exact_knn(wl.base, wl.queries, 10, "l2")
     d, i = idx.search(wl.queries, 10, ef_search=96, beam_keys="bf16")
@@ -120,13 +120,13 @@ def test_tune_operating_point():
     """2-D refinement: smallest ef then smallest hop cap reaching the
     target — the chosen pair must genuinely reach it vs the exact oracle,
     and the cap must be a real bound (<= auto cap ef + 8)."""
-    import hnsw_tpu
-    from hnsw_tpu.utils.datasets import synthetic_workload
+    import hnsw_jax
+    from hnsw_jax.utils.datasets import synthetic_workload
     from conftest import exact_knn
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
 
     wl = synthetic_workload(2000, 16, n_queries=64, metric="l2", seed=95)
-    idx = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
+    idx = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
     idx.add(wl.base)
     ef, hops = idx.tune_operating_point(wl.queries, target_recall=0.95,
                                         k=10)
@@ -160,7 +160,7 @@ def test_reconstruct_batch_and_search_and_reconstruct(small_workload):
     np.testing.assert_allclose(
         d[valid], ((q[valid] - r[valid]) ** 2).sum(-1), rtol=1e-3, atol=1e-2)
 
-    # with_stats flows through **kw: 4-tuple, same (D, I, R) (ADVICE r3)
+    # with_stats flows through **kw: 4-tuple, same (D, I, R)
     d2, i2, r2, stats = idx.search_and_reconstruct(
         wl.queries[:20], k=5, ef_search=64, with_stats=True)
     np.testing.assert_array_equal(i2, i)

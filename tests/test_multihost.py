@@ -1,9 +1,9 @@
-"""Multi-host DCN path (SURVEY.md §5 comm-backend row): the sharded index
+"""Multi-host path (SURVEY.md §5 comm-backend row): the sharded index
 built and queried over a mesh that SPANS two jax.distributed processes
 (4 virtual CPU devices each -> 8 global). Validates the claim in
 parallel/sharded.py's module docstring that the shard_map build/fan-out
 code runs unchanged under jax.distributed — cross-process collectives ride
-the Gloo CPU backend here, ICI/DCN on real TPU pods.
+the Gloo CPU backend here, the hosts' network on a real cluster.
 """
 
 import os

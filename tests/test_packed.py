@@ -6,18 +6,18 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.ops.packed import (
+import hnsw_jax
+from hnsw_jax.ops.packed import (
     PackedNeighbors, _pack_nibbles, make_packed_expand, pack_neighbors,
     quantization_params, quantize_codes, unpack_nibbles,
 )
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 
 def _small_index(n=3000, d=24, m=8, metric="l2", seed=11):
     wl = synthetic_workload(n, d, n_queries=256, metric=metric, seed=seed)
-    idx = hnsw_tpu.HnswIndex(d, m, metric, capacity=4096, ef_construction=80)
+    idx = hnsw_jax.HnswIndex(d, m, metric, capacity=4096, ef_construction=80)
     idx.add(wl.base)
     return idx, wl
 
@@ -101,10 +101,58 @@ def test_packed_distances_match_dequantized(metric):
 # end-to-end
 # ---------------------------------------------------------------------------
 
+def _packed_rows(vals, bits, scale, sq, layout="bytes"):
+    """PackedNeighbors whose node j holds candidate codes vals[j] ([Q, K,
+    d] code values), with neighbors0 [Q, K] = distinct ids."""
+    from hnsw_jax.ops.packed import pack_words
+    q, k, d = vals.shape
+    if layout == "words":
+        rows = pack_words(jnp.asarray(vals), bits).reshape(q, -1)
+    elif bits == 4:
+        rows = _pack_nibbles(jnp.asarray(vals)).reshape(q, -1)
+    else:
+        rows = jnp.asarray(vals.reshape(q, k * d))
+    packed = PackedNeighbors(rows, jnp.asarray(sq), jnp.asarray(scale),
+                             jnp.zeros((d,), jnp.float32))
+    nbr0 = jnp.asarray(np.arange(q * k, dtype=np.int32).reshape(q, k))
+    return packed, nbr0
+
+
+def routing_oracle(qs, vals, scale, sq, metric):
+    """float64 routing distances of the packed hop: sq - 2 (q*scale)·u
+    (L2) or -(q*scale)·u (IP)."""
+    dots = np.einsum("qd,qkd->qk", (qs * scale).astype(np.float64),
+                     vals.astype(np.float64))
+    return -dots if metric == "ip" else sq - 2.0 * dots
+
+
+@pytest.mark.parametrize("d", [64, 96, 100, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_packed_routing_dist(bits, metric, d):
+    """The packed hop's routing distances (make_packed_expand: XLA unpack
+    + one einsum) against a float64 NumPy oracle, 8- and 4-bit rows, at
+    widths that are not powers of two and an odd d for the nibble pad."""
+    rng = np.random.default_rng(100 * bits + d)
+    q, k = 64, 16
+    vals = rng.integers(0, 1 << bits, size=(q, k, d), dtype=np.uint8)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    scale = rng.uniform(0.01, 0.1, size=(d,)).astype(np.float32)
+    sq = rng.uniform(1, 10, size=(q, k)).astype(np.float32)
+    packed, nbr0 = _packed_rows(vals, bits, scale, sq)
+    expand, _ = make_packed_expand(packed, nbr0, jnp.asarray(qs), metric)
+    cur = jnp.arange(q, dtype=jnp.int32)[:, None]
+    nbrs, dist = expand(cur, jnp.ones((q, 1), bool))
+    np.testing.assert_array_equal(np.asarray(nbrs)[:, 0], np.asarray(nbr0))
+    np.testing.assert_allclose(np.asarray(dist),
+                               routing_oracle(qs, vals, scale, sq, metric),
+                               rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_packed_search_recall_parity(metric):
     idx, wl = _small_index(metric=metric)
-    flat = hnsw_tpu.FlatIndex(wl.base.shape[1], metric)
+    flat = hnsw_jax.FlatIndex(wl.base.shape[1], metric)
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
 
@@ -159,7 +207,7 @@ def test_incremental_packed_maintenance_parity(bits):
     rows the build touched — fingerprint diff + the new ids)."""
     d, m = 24, 8
     wl = synthetic_workload(3200, d, n_queries=16, metric="l2", seed=31)
-    idx = hnsw_tpu.HnswIndex(d, m, "l2", capacity=4096, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(d, m, "l2", capacity=4096, ef_construction=60)
     idx.add(wl.base[:3000])
     # small chunk + explicit reserve -> row headroom covers the add below,
     # forcing the INCREMENTAL path (not the full-re-pack fallback)
@@ -203,7 +251,7 @@ def test_packed_full_repack_when_headroom_exhausted():
     re-pack (with retrained params) instead of serving a truncated table."""
     d, m = 24, 8
     wl = synthetic_workload(1300, d, n_queries=8, metric="l2", seed=37)
-    idx = hnsw_tpu.HnswIndex(d, m, "l2", capacity=2048, ef_construction=60)
+    idx = hnsw_jax.HnswIndex(d, m, "l2", capacity=2048, ef_construction=60)
     idx.add(wl.base[:1000])
     idx.enable_packed(bits=8)     # chunk-aligned pad == n: zero headroom
     assert idx._packed.nbr_sq.shape[0] == 1000
@@ -217,7 +265,7 @@ def test_packed_full_repack_when_headroom_exhausted():
 
 def test_packed_composes_with_filters_and_deletion():
     idx, wl = _small_index(n=1500)
-    flat = hnsw_tpu.FlatIndex(wl.base.shape[1], "l2")
+    flat = hnsw_jax.FlatIndex(wl.base.shape[1], "l2")
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 1)
     victim = int(gt[0, 0])
@@ -237,12 +285,11 @@ def test_packed_composes_with_filters_and_deletion():
 
 @pytest.mark.slow
 def test_big_table_boundary():
-    """Regression for the round-2 int32 overflow (VERDICT.md Weak #1): a
+    """Regression for an int32 overflow: a
     1-D packed code-table byte offset ``id * row_w`` crosses 2^31 at node id
     262,144 for row_w = 8192 (d=128, m0=64 — the SIFT1M serving shape), so
     int32 offset arithmetic silently clip-gathered wrong rows for 75% of a
-    1M index. The table is now 2-D with row-index addressing (the TPU
-    compiler rejects >2^31-element 1-D shapes outright); this test keeps
+    1M index. The table is now 2-D with row-index addressing; this test keeps
     the whole class pinned: it builds a small REAL graph, embeds it at ids
     straddling the byte boundary (capacity ~263k, table ~2.6 GB) and
     asserts:
@@ -251,8 +298,8 @@ def test_big_table_boundary():
       (b) packed self-queries hit their own id across the boundary and
           packed/unpacked results agree (catches row-fetch addressing bugs).
     """
-    import hnsw_tpu.search as search_mod
-    from hnsw_tpu.ops.packed import quantize_codes
+    import hnsw_jax.search as search_mod
+    from hnsw_jax.ops.packed import quantize_codes
 
     d, m = 128, 32
     m0 = 2 * m
@@ -263,7 +310,7 @@ def test_big_table_boundary():
     cap_big = off + n_small
 
     wl = synthetic_workload(n_small, d, n_queries=1, metric="l2", seed=23)
-    small = hnsw_tpu.HnswIndex(d, m, "l2", capacity=n_small,
+    small = hnsw_jax.HnswIndex(d, m, "l2", capacity=n_small,
                                ef_construction=60)
     small.add(wl.base)
     g = {k: np.asarray(v) for k, v in small.graph._asdict().items()}
@@ -282,7 +329,7 @@ def test_big_table_boundary():
     vecs = np.zeros((cap_big, d), np.float32)
     vecs[off:] = np.asarray(wl.base, np.float32)
 
-    from hnsw_tpu.graph import GraphArrays
+    from hnsw_jax.graph import GraphArrays
     graph_big = GraphArrays(
         neighbors0=jnp.asarray(nbr0),
         levels=jnp.asarray(levels),
@@ -294,7 +341,7 @@ def test_big_table_boundary():
         ntotal=jnp.asarray(cap_big, jnp.int32),
         n_upper=jnp.asarray(g["n_upper"]),
     )
-    big = hnsw_tpu.HnswIndex(config=cfg_big, _alloc=False)
+    big = hnsw_jax.HnswIndex(config=cfg_big, _alloc=False)
     big._graph = graph_big
     big._vectors = jnp.asarray(vecs)
     big._sqnorms = search_mod.compute_sqnorms(big._vectors)

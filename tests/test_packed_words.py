@@ -1,25 +1,20 @@
 """Word-packed (int32) packed-serving layout: pack/unpack round-trips,
-bit-pattern parity with the uint8 bytes layout, the Pallas words distance
-kernel vs the einsum reference (interpret mode), and end-to-end search
-parity against the bytes layout.
-
-Why this layout exists: the v5e gather engine moves the production 8 KB
-packed rows ~1.4x faster as int32 than as uint8 (scripts/rowgather_probe.py)
-and the row gather is 70% of the packed serving hop (ARCHITECTURE.md
-"Remaining headroom") — same bits, faster wheels."""
+bit-pattern parity with the uint8 bytes layout, routing distances from
+words rows vs a NumPy oracle, and end-to-end search parity against the
+bytes layout. The layout holds the same bits as the bytes layout in int32
+words; enable_packed(layout="words") selects it explicitly."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.ops.dist_kernel import packed_row_dist_words, words_query_planes
-from hnsw_tpu.ops.packed import (
+import hnsw_jax
+from hnsw_jax.ops.packed import (
     make_packed_expand, pack_neighbors, pack_words, unpack_nibbles,
     unpack_words, word_width,
 )
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 
 # ---------------------------------------------------------------------------
@@ -65,26 +60,34 @@ def test_pack_words_bit_pattern_matches_bytes_layout():
 
 
 # ---------------------------------------------------------------------------
-# the Pallas words kernel (interpret mode) vs the einsum reference
+# routing distances from words rows vs unpack_words + NumPy
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("d,bits,k", [(128, 8, 64), (128, 8, 16),
                                       (64, 8, 16), (100, 8, 64),
                                       (128, 4, 64), (24, 8, 16)])
-def test_packed_row_dist_words_matches_einsum(d, bits, k):
+def test_words_routing_dist_matches_numpy(d, bits, k):
+    """make_packed_expand on a words table: the rows unpack (unpack_words)
+    to exactly the stored code values, and the routing distances match a
+    float64 NumPy oracle over those values."""
+    from test_packed import _packed_rows, routing_oracle
     rng = np.random.default_rng(d + bits + k)
-    q = 256
-    wp = word_width(d, bits)
-    g = 128 // wp
-    assert k % g == 0, "test shapes must satisfy the kernel precondition"
+    q = 64
     vals = rng.integers(0, 1 << bits, size=(q, k, d), dtype=np.uint8)
     qs = rng.normal(size=(q, d)).astype(np.float32)
-    words = pack_words(jnp.asarray(vals), bits).reshape(q, k * wp)
-    qq = words_query_planes(jnp.asarray(qs), bits=bits, wp=wp)
-    dots = packed_row_dist_words(words, qq, k=k, wp=wp, bits=bits,
-                                 interpret=True)
-    ref = np.einsum("qd,qkd->qk", qs, vals.astype(np.float32))
-    np.testing.assert_allclose(np.asarray(dots), ref, rtol=1e-5, atol=1e-2)
+    scale = rng.uniform(0.01, 0.1, size=(d,)).astype(np.float32)
+    sq = rng.uniform(1, 10, size=(q, k)).astype(np.float32)
+    packed, nbr0 = _packed_rows(vals, bits, scale, sq, layout="words")
+    assert packed.layout == "words" and packed.bits_for(d, k) == bits
+    wp = word_width(d, bits)
+    back = unpack_words(packed.nbr_codes.reshape(q, k, wp), bits, d)
+    np.testing.assert_array_equal(np.asarray(back), vals)
+    expand, _ = make_packed_expand(packed, nbr0, jnp.asarray(qs), "l2")
+    _, dist = expand(jnp.arange(q, dtype=jnp.int32)[:, None],
+                     jnp.ones((q, 1), bool))
+    np.testing.assert_allclose(np.asarray(dist),
+                               routing_oracle(qs, vals, scale, sq, "l2"),
+                               rtol=1e-5, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +96,7 @@ def test_packed_row_dist_words_matches_einsum(d, bits, k):
 
 def _small_index(n=3000, d=24, m=8, metric="l2", seed=11):
     wl = synthetic_workload(n, d, n_queries=256, metric=metric, seed=seed)
-    idx = hnsw_tpu.HnswIndex(d, m, metric, capacity=4096, ef_construction=80)
+    idx = hnsw_jax.HnswIndex(d, m, metric, capacity=4096, ef_construction=80)
     idx.add(wl.base)
     return idx, wl
 
@@ -123,9 +126,8 @@ def test_pack_neighbors_words_matches_bytes(bits):
 
 
 def test_make_packed_expand_words_fallback_parity():
-    """Without the Pallas kernel (dist_kernel=False) the words layout runs
-    the unpack+einsum fallback — distances must match the bytes layout's
-    to f32 tolerance (identical code values, different traversal)."""
+    """The words layout's unpack+einsum distances must match the bytes
+    layout's to f32 tolerance (identical code values, different unpack)."""
     idx, wl = _small_index(n=800, d=24)
     g = idx._graph
     q = jnp.asarray(wl.queries[:64])
@@ -145,41 +147,16 @@ def test_make_packed_expand_words_fallback_parity():
                                rtol=1e-5, atol=1e-3)
 
 
-def test_make_packed_expand_words_kernel_parity():
-    """With dist_kernel=True (interpret mode) the words kernel path must
-    agree with the words fallback path."""
-    idx, wl = _small_index(n=800, d=24)
-    g = idx._graph
-    q = jnp.asarray(wl.queries[:64])
-    pw = pack_neighbors(g.neighbors0, idx._vectors, g.levels, bits=8,
-                        n_rows=idx.ntotal, layout="words")
-    m0 = g.neighbors0.shape[1]
-    assert m0 % (128 // word_width(24, 8)) == 0
-    cur = jnp.asarray(np.random.default_rng(1).integers(
-        0, idx.ntotal, (64, 1)).astype(np.int32))
-    ok = jnp.ones((64, 1), bool)
-    ef, _ = make_packed_expand(pw, g.neighbors0, q, "l2")
-    ek, _ = make_packed_expand(pw, g.neighbors0, q, "l2",
-                               dist_kernel=True, interpret=True)
-    nf, df = ef(cur, ok)
-    nk, dk = ek(cur, ok)
-    np.testing.assert_array_equal(np.asarray(nf), np.asarray(nk))
-    np.testing.assert_allclose(np.asarray(dk), np.asarray(df),
-                               rtol=1e-5, atol=1e-3)
-
-
 # ---------------------------------------------------------------------------
 # end-to-end
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_words_layout_search_parity(metric, monkeypatch):
-    """enable_packed(layout='words') end-to-end through the FUSED beam in
-    interpret mode (the production TPU path: words kernel + fused beam
-    update), vs the bytes layout on the same index."""
-    monkeypatch.setenv("HNSW_TPU_BEAM_KERNEL", "1")  # fused-interpret on CPU
+def test_words_layout_search_parity(metric):
+    """enable_packed(layout='words') end-to-end through the beam vs the
+    bytes layout on the same index."""
     idx, wl = _small_index(metric=metric)
-    flat = hnsw_tpu.FlatIndex(wl.base.shape[1], metric)
+    flat = hnsw_jax.FlatIndex(wl.base.shape[1], metric)
     flat.add(wl.base)
     _, gt = flat.search(wl.queries, 10)
 
@@ -199,7 +176,7 @@ def test_words_layout_search_parity(metric, monkeypatch):
     assert rw >= rb - 1e-9
 
 
-def test_words_layout_incremental_maintenance(monkeypatch):
+def test_words_layout_incremental_maintenance():
     """add() after enable_packed(layout='words') keeps the table bit-equal
     to a fresh re-pack of the current adjacency under retained params."""
     idx, wl = _small_index(n=1000)
@@ -223,5 +200,5 @@ def test_words_layout_incremental_maintenance(monkeypatch):
 
 def test_auto_layout_on_cpu_is_bytes():
     idx, _ = _small_index(n=500)
-    idx.enable_packed(bits=8)           # layout="auto" on CPU backend
+    idx.enable_packed(bits=8)           # layout="auto": the platform's choice
     assert idx._packed.layout == "bytes"

@@ -5,13 +5,13 @@ the recall-vs-efSearch frontier at equal hyperparameters."""
 import numpy as np
 import pytest
 
-from hnsw_tpu import HnswIndex
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswIndex
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
-cpu_baseline = pytest.importorskip("hnsw_tpu.native.cpu_baseline")
+cpu_baseline = pytest.importorskip("hnsw_jax.native.cpu_baseline")
 
 
 def test_recall_frontier_parity():

@@ -12,10 +12,10 @@ reconstruct returns x̂.
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu import index_factory
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+import hnsw_jax
+from hnsw_jax import index_factory
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
@@ -26,7 +26,7 @@ def _pq_index(n=3000, d=24, m=8, pq_m=8, metric="l2", seed=13, **kw):
     # this module (and warm CI runs, via the persistent cache) reuse one
     # compile set instead of one per distinct n
     wl = synthetic_workload(n, d, n_queries=128, metric=metric, seed=seed)
-    idx = hnsw_tpu.HnswIndex(d, m, metric, capacity=4096, dtype="pq",
+    idx = hnsw_jax.HnswIndex(d, m, metric, capacity=4096, dtype="pq",
                              pq_m=pq_m, ef_construction=80, **kw)
     idx.train(wl.base)
     idx.add(wl.base)
@@ -35,20 +35,20 @@ def _pq_index(n=3000, d=24, m=8, pq_m=8, metric="l2", seed=13, **kw):
 
 def test_config_validation():
     with pytest.raises(ValueError, match="pq_m"):
-        hnsw_tpu.HnswConfig(dim=24, pq_m=7, dtype="pq")     # 7 ∤ 24
+        hnsw_jax.HnswConfig(dim=24, pq_m=7, dtype="pq")     # 7 ∤ 24
     with pytest.raises(ValueError, match="pq_m"):
-        hnsw_tpu.HnswConfig(dim=24, dtype="pq")             # missing pq_m
+        hnsw_jax.HnswConfig(dim=24, dtype="pq")             # missing pq_m
     with pytest.raises(ValueError, match="pq_m"):
-        hnsw_tpu.HnswConfig(dim=24, pq_m=8)                 # pq_m w/o pq
-    cfg = hnsw_tpu.HnswConfig(dim=24, pq_m=8, dtype="pq", capacity=512)
+        hnsw_jax.HnswConfig(dim=24, pq_m=8)                 # pq_m w/o pq
+    cfg = hnsw_jax.HnswConfig(dim=24, pq_m=8, dtype="pq", capacity=512)
     assert cfg.is_pq and cfg.storage_dtype == "uint8"
     assert cfg.storage_width == 8
-    cfg2 = hnsw_tpu.HnswConfig.from_json(cfg.to_json())
+    cfg2 = hnsw_jax.HnswConfig.from_json(cfg.to_json())
     assert cfg2 == cfg
 
 
 def test_train_required_and_storage_shape():
-    idx = hnsw_tpu.HnswIndex(8, 4, "l2", capacity=64, dtype="pq", pq_m=4)
+    idx = hnsw_jax.HnswIndex(8, 4, "l2", capacity=64, dtype="pq", pq_m=4)
     assert not idx.is_trained
     assert idx._vectors.dtype == np.uint8
     assert idx._vectors.shape == (64, 4)  # codes, not dims
@@ -62,7 +62,7 @@ def test_train_required_and_storage_shape():
 
 
 def test_train_floor_and_divisibility():
-    from hnsw_tpu.ops.pq import train_pq
+    from hnsw_jax.ops.pq import train_pq
     x = np.random.default_rng(0).normal(size=(100, 16)).astype(np.float32)
     with pytest.raises(ValueError, match="256"):
         train_pq(x, 4)  # fewer points than centroids
@@ -73,7 +73,7 @@ def test_train_floor_and_divisibility():
 def test_kmeans_codec_roundtrip_quality():
     """encode/decode must reconstruct better than a random codebook and
     SSE must not increase across Lloyd iterations (k-means contract)."""
-    from hnsw_tpu.ops.pq import decode_pq, encode_pq, train_pq
+    from hnsw_jax.ops.pq import decode_pq, encode_pq, train_pq
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2000, 16)).astype(np.float32)
     cb1 = train_pq(x, 4, iters=1, seed=7)
@@ -96,7 +96,7 @@ def test_adc_equals_l2_to_reconstruction():
     """The ADC LUT surrogate, plus ||q||², must equal ||q - x̂||² exactly
     (the distance identity the whole pq path rests on)."""
     import jax.numpy as jnp
-    from hnsw_tpu.ops.pq import (adc_distance, decode_pq, encode_pq, pq_lut,
+    from hnsw_jax.ops.pq import (adc_distance, decode_pq, encode_pq, pq_lut,
                                  train_pq)
     rng = np.random.default_rng(1)
     x = rng.normal(size=(1500, 24)).astype(np.float32)
@@ -148,7 +148,7 @@ def test_pq_save_load_roundtrip(tmp_path):
     d1, i1 = idx.search(wl.queries[:32], 5, ef_search=64)
     p = str(tmp_path / "pq.npz")
     idx.save(p)
-    idx2 = hnsw_tpu.HnswIndex.load(p)
+    idx2 = hnsw_jax.HnswIndex.load(p)
     assert idx2.config.is_pq and idx2.is_trained
     assert idx2._vectors.dtype == np.uint8
     np.testing.assert_array_equal(idx2._pq_np, idx._pq_np)
@@ -193,7 +193,7 @@ def test_pq_packed_rows_parity():
     nb = idx.enable_packed()
     assert idx.packed_enabled
     # row width: m0 * pq_m bytes — 8-16x smaller than sq rows (m0 * d)
-    from hnsw_tpu.ops.packed import PackedPQ
+    from hnsw_jax.ops.packed import PackedPQ
     assert isinstance(idx._packed, PackedPQ)
     assert idx._packed.nbr_codes.shape[1] == idx.config.m0 * 8
     assert nb >= idx._packed.nbr_codes.size
@@ -232,7 +232,7 @@ def test_pq_routing_rows_on_flat_storage():
     ADC routing + exact f32 rerank — the low-memory packed configuration
     (m0 * pq_m bytes/row instead of m0 * d)."""
     wl = synthetic_workload(2500, 24, n_queries=96, metric="l2", seed=11)
-    idx = hnsw_tpu.HnswIndex(24, 8, "l2", capacity=4096,
+    idx = hnsw_jax.HnswIndex(24, 8, "l2", capacity=4096,
                              ef_construction=80)
     idx.add(wl.base)
     _, gt = exact_knn(wl.base, wl.queries, 10, "l2")
@@ -241,7 +241,7 @@ def test_pq_routing_rows_on_flat_storage():
     with pytest.raises(ValueError, match="pq_m"):
         idx.enable_packed(mode="pq")          # pq_m required
     idx.enable_packed(mode="pq", pq_m=8, train_x=wl.base)
-    from hnsw_tpu.ops.packed import PackedPQ
+    from hnsw_jax.ops.packed import PackedPQ
     assert isinstance(idx._packed, PackedPQ)
     d1, i1 = idx.search(wl.queries, 10, ef_search=96)
     r_pk = recall_at_k(i1, gt, 10)
@@ -279,14 +279,14 @@ def test_pq_packed_incremental_add():
 
 
 def test_pq_memory_is_codes_only():
-    cfg = hnsw_tpu.HnswConfig(dim=32, m=8, capacity=1024, dtype="pq", pq_m=8)
-    idx = hnsw_tpu.HnswIndex(config=cfg)
+    cfg = hnsw_jax.HnswConfig(dim=32, m=8, capacity=1024, dtype="pq", pq_m=8)
+    idx = hnsw_jax.HnswIndex(config=cfg)
     assert idx._vectors.size * idx._vectors.dtype.itemsize == 1024 * 8
 
 
 def test_pq_rejects_host_build():
     with pytest.raises(ValueError, match="device"):
-        hnsw_tpu.HnswIndex(8, 4, capacity=64, dtype="pq", pq_m=4,
+        hnsw_jax.HnswIndex(8, 4, capacity=64, dtype="pq", pq_m=4,
                            build="host")
 
 

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hnsw_tpu import HnswConfig, NumpyHnsw
-from hnsw_tpu.ops.prune import select_neighbors
+from hnsw_jax import HnswConfig, NumpyHnsw
+from hnsw_jax.ops.prune import select_neighbors
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])

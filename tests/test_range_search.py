@@ -5,8 +5,8 @@ dot > radius)."""
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.utils.datasets import synthetic_workload
+import hnsw_jax
+from hnsw_jax.utils.datasets import synthetic_workload
 
 
 @pytest.fixture(scope="module")
@@ -16,14 +16,14 @@ def wl():
 
 @pytest.fixture(scope="module")
 def flat(wl):
-    f = hnsw_tpu.FlatIndex(16, "l2")
+    f = hnsw_jax.FlatIndex(16, "l2")
     f.add(wl.base)
     return f
 
 
 @pytest.fixture(scope="module")
 def hnsw(wl):
-    h = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
+    h = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048, ef_construction=80)
     h.add(wl.base)
     return h
 
@@ -77,7 +77,7 @@ def test_ip_range_sign_convention():
     dots = q @ base.T
     r = float(np.median(np.sort(dots, axis=1)[:, -5]))  # ~5 hits/query
 
-    f = hnsw_tpu.FlatIndex(16, "ip")
+    f = hnsw_jax.FlatIndex(16, "ip")
     f.add(wl.base)
     lims, D, I = f.range_search(q, r)
     assert (D > r).all()
@@ -87,7 +87,7 @@ def test_ip_range_sign_convention():
         seg = D[lims[qi]: lims[qi + 1]]
         assert (np.diff(seg) <= 0).all()            # descending dot
 
-    h = hnsw_tpu.HnswIndex(16, 8, "ip", capacity=2048, ef_construction=80)
+    h = hnsw_jax.HnswIndex(16, 8, "ip", capacity=2048, ef_construction=80)
     h.add(wl.base)
     hl, hD, hI = h.range_search(q, r, ef_search=96)
     assert (hD > r).all()

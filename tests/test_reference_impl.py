@@ -1,7 +1,7 @@
 import numpy as np
 
-from hnsw_tpu import HnswConfig, NumpyHnsw, check_invariants
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import HnswConfig, NumpyHnsw, check_invariants
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 

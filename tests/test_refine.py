@@ -4,9 +4,9 @@ quantized inner index recovers recall the codes lose."""
 import numpy as np
 import pytest
 
-from hnsw_tpu import FlatIndex, RefineFlatIndex, index_factory
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax import FlatIndex, RefineFlatIndex, index_factory
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 
 def _gt(base, queries, k, metric="l2"):

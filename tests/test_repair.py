@@ -4,8 +4,8 @@ append-or-shrink back-link semantics."""
 import numpy as np
 import jax.numpy as jnp
 
-from hnsw_tpu import HnswConfig, NumpyHnsw
-from hnsw_tpu.ops.repair import apply_backlinks
+from hnsw_jax import HnswConfig, NumpyHnsw
+from hnsw_jax.ops.repair import apply_backlinks
 
 
 def _numpy_apply(adj, dst_rows, dst_ids, src_ids, valid, vectors, metric):
@@ -138,10 +138,10 @@ def test_all_invalid_is_noop():
 def test_index_r_window_reaches_builder():
     """HnswIndex.r_window is consumed by the lazily created DeviceBuilder
     (the back-link-completeness lever, scripts/backlink_probe.py)."""
-    import hnsw_tpu
+    import hnsw_jax
     rng = np.random.default_rng(5)
     x = rng.standard_normal((600, 16), dtype=np.float32)
-    idx = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=1024, ef_construction=40)
+    idx = hnsw_jax.HnswIndex(16, 8, "l2", capacity=1024, ef_construction=40)
     idx.r_window = 32
     idx.add(x)
     assert idx._builder.r_window == 32

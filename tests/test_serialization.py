@@ -1,6 +1,6 @@
 import numpy as np
 
-from hnsw_tpu import HnswIndex
+from hnsw_jax import HnswIndex
 
 
 def test_save_load_bit_identical_search(tmp_path, host_index, small_workload):

@@ -1,11 +1,11 @@
-"""Serving micro-batcher (hnsw_tpu/serving.py): bucket padding, request
+"""Serving micro-batcher (hnsw_jax/serving.py): bucket padding, request
 coalescing, handle bookkeeping."""
 
 import numpy as np
 
-from hnsw_tpu import HnswIndex
-from hnsw_tpu.serving import Searcher, size_bucket
-from hnsw_tpu.utils.datasets import synthetic_workload
+from hnsw_jax import HnswIndex
+from hnsw_jax.serving import Searcher, size_bucket
+from hnsw_jax.utils.datasets import synthetic_workload
 
 from conftest import exact_knn
 

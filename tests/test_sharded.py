@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 import jax
 
-from hnsw_tpu.parallel.sharded import ShardedHnswIndex, make_mesh
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.parallel.sharded import ShardedHnswIndex, make_mesh
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
@@ -79,7 +79,7 @@ def test_sharded_save_load(tmp_path, sharded_built):
     d1, i1 = idx.search(wl.queries[:32], k=5)
     p = str(tmp_path / "sharded.npz")
     idx.save(p)
-    from hnsw_tpu.parallel.sharded import ShardedHnswIndex
+    from hnsw_jax.parallel.sharded import ShardedHnswIndex
     idx2 = ShardedHnswIndex.load(p, mesh=idx.mesh)
     assert idx2.ntotal == idx.ntotal
     d2, i2 = idx2.search(wl.queries[:32], k=5)
@@ -101,8 +101,8 @@ def test_sharded_invariants(sharded_built):
 
 @pytest.mark.slow  # compile-heavy standalone build; path covered by the fast representatives + dryrun
 def test_sharded_ip_metric():
-    """The sharded test matrix mirrors the single-chip one (VERDICT.md r2
-    item 9): inner-product metric through build, fan-out, and merge."""
+    """The sharded test matrix mirrors the single-chip one:
+    inner-product metric through build, fan-out, and merge."""
     mesh = make_mesh(n_shards=4, q_parallel=2)
     wl = synthetic_workload(3000, 16, n_queries=96, metric="ip", seed=53)
     idx = ShardedHnswIndex(16, 8, "ip", mesh=mesh, capacity_per_shard=1024,
@@ -279,7 +279,7 @@ def test_sharded_packed_sq8_and_4bit():
 def test_sharded_composes_with_wrappers():
     """PreTransformIndex / IdMapIndex / Searcher wrap the sharded index
     like any other (faiss composability parity)."""
-    from hnsw_tpu import (IdMapIndex, NormalizationTransform,
+    from hnsw_jax import (IdMapIndex, NormalizationTransform,
                           PreTransformIndex, Searcher)
 
     mesh = make_mesh(n_shards=4, q_parallel=2)
@@ -317,8 +317,8 @@ def test_sharded_composes_with_wrappers():
 
 def test_sharded_packed_words_layout_parity():
     """Per-shard packed tables in the int32 'words' layout must return
-    results identical to the 'bytes' layout (same code values, faster
-    wheels on TPU — ops/packed.py pack_words)."""
+    results identical to the 'bytes' layout (same code values — ops/packed.py
+    pack_words)."""
     mesh = make_mesh(n_shards=4, q_parallel=2)
     wl = synthetic_workload(3000, 16, n_queries=96, metric="l2", seed=68)
     idx = ShardedHnswIndex(16, 8, "l2", mesh=mesh, capacity_per_shard=1024,

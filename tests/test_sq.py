@@ -10,17 +10,17 @@ and query) is computed against the dequantized x̂; reconstruct returns x̂.
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu import index_factory
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+import hnsw_jax
+from hnsw_jax import index_factory
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
 
 def _sq_index(n=3000, d=24, m=8, metric="l2", seed=13, **kw):
     wl = synthetic_workload(n, d, n_queries=128, metric=metric, seed=seed)
-    idx = hnsw_tpu.HnswIndex(d, m, metric, capacity=n + 1024, dtype="sq8",
+    idx = hnsw_jax.HnswIndex(d, m, metric, capacity=n + 1024, dtype="sq8",
                              ef_construction=80, **kw)
     idx.train(wl.base)
     idx.add(wl.base)
@@ -28,7 +28,7 @@ def _sq_index(n=3000, d=24, m=8, metric="l2", seed=13, **kw):
 
 
 def test_train_required_and_storage_dtype():
-    idx = hnsw_tpu.HnswIndex(8, 4, "l2", capacity=64, dtype="sq8")
+    idx = hnsw_jax.HnswIndex(8, 4, "l2", capacity=64, dtype="sq8")
     assert not idx.is_trained
     assert idx._vectors.dtype == np.uint8
     with pytest.raises(RuntimeError, match="train"):
@@ -90,7 +90,7 @@ def test_sq_save_load_roundtrip(tmp_path):
     d1, i1 = idx.search(wl.queries[:32], 5, ef_search=64)
     p = str(tmp_path / "sq.npz")
     idx.save(p)
-    idx2 = hnsw_tpu.HnswIndex.load(p)
+    idx2 = hnsw_jax.HnswIndex.load(p)
     assert idx2.config.is_sq and idx2.is_trained
     assert idx2._vectors.dtype == np.uint8
     d2, i2 = idx2.search(wl.queries[:32], 5, ef_search=64)
@@ -143,16 +143,16 @@ def test_sq_factory_and_filters():
 
 
 def test_sq_memory_is_quarter_of_flat():
-    cfg = hnsw_tpu.HnswConfig(dim=32, m=8, capacity=1024, dtype="sq8")
+    cfg = hnsw_jax.HnswConfig(dim=32, m=8, capacity=1024, dtype="sq8")
     assert cfg.storage_dtype == "uint8"
-    idx = hnsw_tpu.HnswIndex(config=cfg)
+    idx = hnsw_jax.HnswIndex(config=cfg)
     assert idx._vectors.dtype == np.uint8
     assert idx._vectors.size * idx._vectors.dtype.itemsize == 1024 * 32
 
 
 def test_sq_rejects_host_build():
     with pytest.raises(ValueError, match="device"):
-        hnsw_tpu.HnswIndex(8, 4, capacity=64, dtype="sq8", build="host")
+        hnsw_jax.HnswIndex(8, 4, capacity=64, dtype="sq8", build="host")
 
 
 def test_sq_reconstruct_batch_and_search_and_reconstruct():

@@ -6,9 +6,9 @@ _get_scan vs _get_step — the math is one deterministic sequence either way).
 import numpy as np
 import jax.numpy as jnp
 
-from hnsw_tpu import HnswConfig
-from hnsw_tpu.build import DeviceBuilder
-from hnsw_tpu.graph import empty_graph
+from hnsw_jax import HnswConfig
+from hnsw_jax.build import DeviceBuilder
+from hnsw_jax.graph import empty_graph
 
 
 def _build(n_points, scan_chunk):
@@ -38,7 +38,7 @@ def test_scan_path_matches_stepwise():
 def test_incremental_adds_match_single_add():
     """Splitting one add() into several must not change counters/invariants
     (the staged planner runs per call)."""
-    from hnsw_tpu import HnswIndex
+    from hnsw_jax import HnswIndex
     rng = np.random.default_rng(4)
     x = rng.normal(size=(900, 16)).astype(np.float32)
     a = HnswIndex(16, 8, capacity=2048, ef_construction=40, seed=2)
@@ -56,6 +56,6 @@ def test_incremental_adds_match_single_add():
     # both must find the true NN most of the time
     from conftest import exact_knn
     _, gt = exact_knn(x, q, 5, "l2")
-    from hnsw_tpu.utils.recall import recall_at_k
+    from hnsw_jax.utils.recall import recall_at_k
     assert recall_at_k(ia, gt, 5) > 0.9
     assert recall_at_k(ib, gt, 5) > 0.9

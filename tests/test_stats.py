@@ -1,6 +1,6 @@
 import numpy as np
 
-from hnsw_tpu.utils.stats import HnswStats
+from hnsw_jax.utils.stats import HnswStats
 
 
 class _FakeStats:

@@ -4,12 +4,12 @@ IndexPreTransform parity; SURVEY.md §1b index-wrappers layer)."""
 import numpy as np
 import pytest
 
-from hnsw_tpu import index_factory
-from hnsw_tpu.models.pretransform import PreTransformIndex
-from hnsw_tpu.ops.transforms import (NormalizationTransform, OPQMatrix,
+from hnsw_jax import index_factory
+from hnsw_jax.models.pretransform import PreTransformIndex
+from hnsw_jax.ops.transforms import (NormalizationTransform, OPQMatrix,
                                      PCAMatrix, RandomRotation)
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 
 def _aniso(n, d, seed=0):
@@ -81,7 +81,7 @@ def test_pca_random_rotation_flag():
 
 
 def test_opq_beats_plain_pq():
-    from hnsw_tpu.ops.pq import decode_pq, encode_pq, train_pq
+    from hnsw_jax.ops.pq import decode_pq, encode_pq, train_pq
     import jax.numpy as jnp
 
     x = _aniso(8192, 32, seed=6)

@@ -7,16 +7,16 @@ repair is the behavioral model."""
 import numpy as np
 import pytest
 
-import hnsw_tpu
-from hnsw_tpu.utils.datasets import synthetic_workload
-from hnsw_tpu.utils.recall import recall_at_k
+import hnsw_jax
+from hnsw_jax.utils.datasets import synthetic_workload
+from hnsw_jax.utils.recall import recall_at_k
 
 from conftest import exact_knn
 
 
 def _built(n=3000, d=24, m=8, metric="l2", seed=7, **kw):
     wl = synthetic_workload(n, d, n_queries=128, metric=metric, seed=seed)
-    idx = hnsw_tpu.HnswIndex(d, m, metric, capacity=n + 512,
+    idx = hnsw_jax.HnswIndex(d, m, metric, capacity=n + 512,
                              ef_construction=80, **kw)
     idx.add(wl.base)
     return idx, wl
@@ -106,7 +106,7 @@ def test_vacuum_save_load_roundtrip(tmp_path):
     d1, i1 = idx.search(wl.queries[:32], 5, ef_search=64)
     p = str(tmp_path / "v.npz")
     idx.save(p)
-    idx2 = hnsw_tpu.HnswIndex.load(p)
+    idx2 = hnsw_jax.HnswIndex.load(p)
     assert idx2._routing_clean
     d2, i2 = idx2.search(wl.queries[:32], 5, ef_search=64)
     np.testing.assert_array_equal(i1, i2)
@@ -115,7 +115,7 @@ def test_vacuum_save_load_roundtrip(tmp_path):
     idx3.remove_ids(np.arange(50))
     p3 = str(tmp_path / "pre.npz")
     idx3.save(p3)
-    idx4 = hnsw_tpu.HnswIndex.load(p3)
+    idx4 = hnsw_jax.HnswIndex.load(p3)
     assert not idx4._routing_clean
     _, i4 = idx4.search(wl.queries[:16], 5, ef_search=64)
     assert (i4[i4 >= 0] >= 50).all()
@@ -123,7 +123,7 @@ def test_vacuum_save_load_roundtrip(tmp_path):
 
 def test_vacuum_sq8_storage():
     wl = synthetic_workload(1500, 16, n_queries=64, metric="l2", seed=5)
-    idx = hnsw_tpu.HnswIndex(16, 8, "l2", capacity=2048, dtype="sq8",
+    idx = hnsw_jax.HnswIndex(16, 8, "l2", capacity=2048, dtype="sq8",
                              ef_construction=60)
     idx.train(wl.base)
     idx.add(wl.base)
@@ -159,7 +159,7 @@ def test_compacted_renumbers():
 def test_sharded_vacuum():
     """ShardedHnswIndex.vacuum: one shard_map program patches every shard;
     unfiltered fan-out searches never return dead ids afterwards."""
-    from hnsw_tpu.parallel.sharded import ShardedHnswIndex, make_mesh
+    from hnsw_jax.parallel.sharded import ShardedHnswIndex, make_mesh
 
     wl = synthetic_workload(4000, 16, n_queries=96, metric="l2", seed=17)
     idx = ShardedHnswIndex(16, 8, "l2", mesh=make_mesh(4),
@@ -187,7 +187,7 @@ def test_sharded_vacuum():
 
 
 def test_sharded_vacuum_save_load(tmp_path):
-    from hnsw_tpu.parallel.sharded import ShardedHnswIndex, make_mesh
+    from hnsw_jax.parallel.sharded import ShardedHnswIndex, make_mesh
 
     wl = synthetic_workload(1200, 16, n_queries=32, metric="l2", seed=23)
     idx = ShardedHnswIndex(16, 8, "l2", mesh=make_mesh(4),

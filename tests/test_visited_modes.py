@@ -4,7 +4,7 @@ visited set (the argument in ops/beam.py's docstring, verified here)."""
 import numpy as np
 import jax.numpy as jnp
 
-from hnsw_tpu.search import compute_sqnorms, hnsw_search
+from hnsw_jax.search import compute_sqnorms, hnsw_search
 
 
 def test_buffer_equals_bitmap(host_index, small_workload):
